@@ -1,4 +1,4 @@
-// Single-thread CPU query engine over the rowbowt-tpu sorted tables.
+// Single-thread CPU query engine over the rowbowt sorted tables.
 //
 // Two roles: (a) the honest CPU baseline for bench.py's vs_baseline ratios
 // (equivalent work to the reference's query loops, one read at a time:

@@ -1,5 +1,5 @@
 // Native streaming FASTA/FASTQ reader + batch encoder (kseq equivalent,
-// /root/reference/include/kseq.h) for the TPU query pipeline: parses plain or
+// /root/reference/include/kseq.h) for the device query pipeline: parses plain or
 // gzip files with zlib, normalizes bytes, and writes right-aligned int32 code
 // batches (pad -1) ready for the device — the host data-loader stage.
 //

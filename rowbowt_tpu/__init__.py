@@ -1,8 +1,8 @@
-"""rowbowt-tpu: TPU-native pangenome r-index query engine.
+"""rowbowt-tpu: a batched pangenome r-index query engine in JAX, run on NVIDIA GPUs.
 
-A brand-new jax/XLA/Pallas framework with the capabilities of the CPU reference
-`alshai/rowbowt` (run-length BWT count / locate / marker-genotyping queries over a
-pangenome index), re-designed TPU-first: all succinct-structure operations become
+A jax/XLA framework with the capabilities of the CPU reference `alshai/rowbowt`
+(run-length BWT count / locate / marker-genotyping queries over a pangenome
+index), redesigned for an accelerator: all succinct-structure operations become
 batched searchsorted+gather over dense sorted tables, and thousands of reads run
 backward search in lockstep inside jit'd lax loops.
 

@@ -1,7 +1,7 @@
 """Shared CLI plumbing: index loading, shape-bucketed batching, timers.
 
 The reference binaries stream one read at a time (rb_align.cpp:176-178) or
-through a thread pool (rb_markers.cpp:318-535); the TPU pipeline instead
+through a thread pool (rb_markers.cpp:318-535); the device pipeline instead
 gathers reads into fixed-shape batches (padded lengths bucketed to powers of
 two so jit caches stay warm) and keeps OUTPUT IN INPUT ORDER — strictly
 stronger than rb_markers' nondeterministic thread interleaving, and identical
@@ -57,8 +57,8 @@ def load_index(prefix: str, sa=False, ma=False, dl=False, ft=False):
 
 
 def device_index(idx, sa=False, ma=False):
-    """HBM view.  For RbtIndex the component gating already happened at load
-    time; a BigIndex mmap-loads everything on host and gates HBM here."""
+    """Device view.  For RbtIndex the component gating already happened at
+    load time; a BigIndex mmap-loads everything on host and gates here."""
     from rowbowt_tpu.bigindex import BigIndex
     from rowbowt_tpu.engine.device import DeviceIndex
 

@@ -17,6 +17,7 @@ import sys
 
 import numpy as np
 
+from rowbowt_tpu import runtime
 from rowbowt_tpu.cli.common import (
     Timer, device_index, eprint, iter_query_batches, load_index, pow2_at_least,
 )
@@ -43,6 +44,7 @@ def main(argv=None):
                    help="write a jax profiler trace of the query loop to DIR "
                         "(view with tensorboard / xprof)")
     args = p.parse_args(argv)
+    runtime.init()
 
     t_load = Timer()
     idx = load_index(args.inpre, sa=args.sam, ma=args.markers, dl=args.sam)
@@ -99,7 +101,11 @@ def _query_loop(args, idx, dx, out):
             lo, hi, k = find_ranges_w_toehold(dx, qc, lens)
         else:
             lo, hi = find_ranges(dx, qc, lens)
-        lo_h, hi_h = np.asarray(lo), np.asarray(hi)
+        # pad lanes (length 0, past the batch's reads) hold the full range:
+        # empty them, or locate and markers would expand all n rows of each
+        lo_h, hi_h = np.array(lo), np.array(hi)
+        lo_h[len(names):], hi_h[len(names):] = 1, 0
+        lo, hi = jnp.asarray(lo_h), jnp.asarray(hi_h)
         if args.sam:
             # the reference locates the WHOLE range (max_hits = -1); the
             # bucketed ragged walk allocates O(total hits), so one huge-range

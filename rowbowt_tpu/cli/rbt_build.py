@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from rowbowt_tpu import runtime
 from rowbowt_tpu.cli.common import Timer, eprint
 
 
@@ -49,6 +50,7 @@ def main(argv=None):
                         "formats (PREFIX.rbwt/.tsa/.mab/.docs, "
                         "rowbowt_io.hpp:49-125)")
     args = p.parse_args(argv)
+    runtime.init()
 
     from rowbowt_tpu.index import RbtIndex
 

@@ -16,6 +16,7 @@ import sys
 
 import numpy as np
 
+from rowbowt_tpu import runtime
 from rowbowt_tpu.cli.common import (
     device_index, eprint, iter_query_batches, load_index,
 )
@@ -33,6 +34,7 @@ def main(argv=None):
     p.add_argument("-o", "--output-prefix", dest="outpre", default=None)
     p.add_argument("-b", "--batch-size", type=int, default=4096)
     args = p.parse_args(argv)
+    runtime.init()
 
     idx = load_index(args.inpre, sa=True, dl=True)
     midx_path = args.inpre.rstrip("/") + ".midx.npz"

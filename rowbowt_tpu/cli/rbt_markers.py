@@ -22,6 +22,7 @@ import sys
 
 import numpy as np
 
+from rowbowt_tpu import runtime
 from rowbowt_tpu.alphabet import normalize_read
 from rowbowt_tpu.cli.common import (
     Timer, device_index, eprint, iter_query_batches, load_index,
@@ -60,6 +61,7 @@ def main(argv=None):
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="write a jax profiler trace of the marker loop to DIR")
     args = p.parse_args(argv)
+    runtime.init()
 
     if args.overlap:
         eprint("overlapped seeds currently broken")  # rb_markers.cpp:121-124

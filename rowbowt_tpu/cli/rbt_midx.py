@@ -10,6 +10,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from rowbowt_tpu import runtime
 from rowbowt_tpu.midx import PosMarkers
 
 
@@ -18,6 +19,7 @@ def main(argv=None):
     p.add_argument("input", help="text marker-position file")
     p.add_argument("output", help="output .midx.npz path")
     args = p.parse_args(argv)
+    runtime.init()
     pm = PosMarkers.from_text_file(args.input)
     pm.save(args.output if args.output.endswith(".npz") else args.output + ".npz")
     return 0

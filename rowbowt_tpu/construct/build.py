@@ -24,8 +24,8 @@ def bwt_from_sa(text: np.ndarray, sa: np.ndarray) -> np.ndarray:
 DENSE_BLOCK = 128  # symbols per occ checkpoint block (16 uint32 words, 64B)
 
 # full positional occ (occ1): one elem gather per rank, 4(n+1)A bytes.
-# SUPERSEDED by fblock for panel builds (fblock is 2.7x faster on v5e at
-# n=8M and 37x smaller, tools/fblock_probe.py); still built for RAW-input
+# SUPERSEDED by fblock for panel builds (fblock is 37x smaller;
+# tools/fblock_probe.py compares the two); still built for RAW-input
 # indexes below this size, where the per-step toehold path lf_step_w_loc_occ1
 # needs occ1+tk1 (no full SA -> no kval shortcut).
 OCC1_MAX_N = 128_000_000
@@ -41,7 +41,7 @@ def build_occ1(codes: np.ndarray, A: int) -> np.ndarray:
 
 
 def build_dense_tables(codes: np.ndarray, A: int):
-    """4-bit packed BWT + per-block occ checkpoints (the TPU fast path: one
+    """4-bit packed BWT + per-block occ checkpoints (the dense path: one
     contiguous 64B block load + one checkpoint gather per rank, replacing the
     20-level binary search over run starts).  codes: int64[n] in [0, A<=16)."""
     assert A <= 16
@@ -74,8 +74,8 @@ def build_fblock(codes: np.ndarray, A: int) -> np.ndarray:
     """Interleaved fused-block rank table: int32[nb, 24] rows of
     [8 per-char exclusive occ checkpoints | 16 packed 4-bit BWT words].
 
-    One row gather + VPU SWAR popcount = rank(i, c) — the checkpoint and the
-    in-block symbols ride the same HBM transaction (the dense analog of
+    One row gather + SWAR popcount = rank(i, c) — the checkpoint and the
+    in-block symbols ride the same memory transaction (the dense analog of
     rle_string::rank's single cache-line locality, rle_string.hpp:131-161) at
     0.75 bytes/symbol vs occ1's 4*A bytes/symbol.
     """
@@ -100,20 +100,17 @@ def build_fblock(codes: np.ndarray, A: int) -> np.ndarray:
 FB64_BLOCK = 64
 FB64_WORDS = FB64_BLOCK // 8  # 8 packed uint32 words per row
 FB64_ROW = FB_CKPT + FB64_WORDS  # 16 int32 lanes = 64 bytes per 64 symbols
-# Row gathers pay per-transaction, not per-byte: halving the row from 96B to
-# 64B raises the gather rate itself at EVERY scale measured on v5e hardware --
-# 1.51x end-to-end count at n=8M (1.81M vs 1.20M reads/s) and 1.33x at n=160M
-# (227k vs 170k), identical checksums (tools/fblock_probe.py part3 + the
-# round-3 A/B, DESIGN.md "chr-scale gather ceiling").  The 64B repack is
-# therefore the universal device layout; the threshold exists only as an
-# escape hatch (set above any n to force the 96B rows).
+# Row gathers pay per memory transaction more than per byte, so the 64B
+# repack is the universal device layout; the threshold is an escape hatch
+# (set above any n to force the 96B rows).  Both thresholds here were chosen
+# on other hardware and are open for re-tuning on the GPU
+# (tools/fblock_probe.py part3 measures the layouts).
 FB64_MIN_N = 0
 
 # Below this n a DeviceIndex keeps BOTH row layouts resident (0.75 + 1.0
 # B/symbol — 14 MB at n=8M): the pure LF loops (count/locate/markers) run on
-# the 64B rows, but the greedy-seeding loop prefers the 96B rows in this
-# regime (152k vs 113k reads/s at n=8M on v5e) and only flips to 64B out of
-# cache (48.0k vs 41.9k at n=160M) — lf_step_auto(prefer_fb96=True).
+# the 64B rows and the greedy-seeding loop on the 96B rows
+# (lf_step_auto(prefer_fb96=True)).
 FB96_KEEP_MAX_N = 32_000_000
 
 
@@ -143,10 +140,9 @@ def fblock_to_fb64(fb: np.ndarray, n: int) -> np.ndarray:
 
 # NOTE: a run-jump LF table (J=10 chained LF steps per gathered row, with
 # host-side repair of lanes leaving the single-run regime) was built and
-# benchmarked in round 1 and DELETED: on TPU v5e the host repair round-trips
-# made it 22x SLOWER than the plain 2-gather LF loop (14,681 vs 331,608
-# reads/s, BENCH_r01.json) while doubling index HBM (16 bytes/symbol).
-# See DESIGN.md "negative results".
+# DELETED: its host repair round-trips made it far slower than the plain
+# 2-gather LF loop while doubling the index (16 bytes/symbol).  See
+# DESIGN.md "negative results".
 
 
 def core_tables(codes: np.ndarray, A: int):

@@ -17,14 +17,14 @@ import os
 import numpy as np
 
 _NATIVE = None
-_NATIVE_TRIED = False
 
 
 def _load_native():
-    global _NATIVE, _NATIVE_TRIED
-    if _NATIVE_TRIED:
+    """The native library, or None while it is not built (looked up again
+    on the next call, so a build made after import is picked up)."""
+    global _NATIVE
+    if _NATIVE is not None:
         return _NATIVE
-    _NATIVE_TRIED = True
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for cand in (
         os.path.join(here, "native", "librbt_native.so"),

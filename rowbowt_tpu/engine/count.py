@@ -1,6 +1,6 @@
 """Batched backward search (count path).
 
-The TPU-native equivalent of RowBowt::find_range (rowbowt.hpp:121-131): B reads
+The batched equivalent of RowBowt::find_range (rowbowt.hpp:121-131): B reads
 advance one LF step per fori_loop iteration in lockstep, with done-masks; a
 whole FASTQ batch is one jit'd program.  Optional ftab fast start mirrors
 search_ftab (rowbowt.hpp:745-758).

@@ -75,7 +75,7 @@ class DeviceIndex:
         return "bwt4" in self.arrays
 
     # run-space tables shadowed by the dense fast paths; dropping them from a
-    # chr-scale DeviceIndex saves ~1 GB HBM (occ is A*R, ltk is A*R)
+    # chr-scale DeviceIndex saves ~1 GB of device memory (occ is A*R, ltk is A*R)
     _LEAN_DROP = ("occ_flat", "cruns_flat", "cruns_off", "ltk",
                   "pred_pos", "pred_to_run")
 
@@ -91,11 +91,11 @@ class DeviceIndex:
 
     @staticmethod
     def from_index(idx: RbtIndex, device=None, fb64: bool | None = None) -> "DeviceIndex":
-        """fb64=None (default) repacks the fblock to 64-symbol/64B rows: HBM
-        row gathers pay per-transaction, not per-byte, so the smaller row wins
-        at every measured scale (1.51x at n=8M, 1.33x at n=160M on v5e).  The
-        on-disk artifact always stores the denser 96B layout; the repack is
-        load-time only.  fb64=False forces the 96B rows (tests/diagnostics)."""
+        """fb64=None (default) repacks the fblock to 64-symbol/64B rows (row
+        gathers pay per memory transaction); the construct.build thresholds
+        decide, and are open for re-tuning on the GPU.  The on-disk artifact
+        always stores the denser 96B layout; the repack is load-time only.
+        fb64=False forces the 96B rows (tests/diagnostics)."""
         arrs_np = dict(idx.device_arrays())
         keep_both = False
         if fb64 is None:

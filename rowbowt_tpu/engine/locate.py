@@ -121,7 +121,7 @@ def _toehold_trajectory(dx: DeviceIndex, qcodes, lengths):
     """Toehold by trajectory postpass — the O(R) big-index path (n >= 2^31,
     no dense kval/ltk; bigindex.py run-space tables).
 
-    TPU-native split of the reference's per-step LF_w_loc (rowbowt.hpp:
+    Batched split of the reference's per-step LF_w_loc (rowbowt.hpp:
     553-573): the dependent chain stays the plain 2-gather LF count loop,
     which additionally RECORDS each step's pre-step hi ([L, B], ~100 MB at
     bench shapes).  Everything data-dependent about the toehold then becomes

@@ -1,6 +1,6 @@
 """Batched greedy seeding: the production rb_markers / rb_locs query paths.
 
-TPU-native lockstep versions of the reference's data-dependent seeding loops:
+Batched lockstep versions of the reference's data-dependent seeding loops:
 
 - seeds_greedy_w_sample   == RowBowt::get_seeds_greedy_w_sample (rowbowt.hpp:222-256)
 - markers_greedy_seeding  == RowBowt::get_markers_greedy_seeding (rowbowt.hpp:406-482),
@@ -249,13 +249,12 @@ def markers_greedy_seeding(dx: DeviceIndex, qcodes, lengths, wsize: int,
     qflat = qcodes.reshape(-1).astype(dt)  # row-major [B*L]: lane b col j at b*L+j
     lane_base = (jnp.arange(B, dtype=dt) * L)
 
-    # the greedy loop interleaves LF with marker probes + slot records;
-    # in-cache it prefers the 96B rows (152k vs 113k reads/s at n=8M),
-    # out of cache the 64B rows win — lf_step_auto resolves per-index
+    # the greedy loop interleaves LF with marker probes + slot records; it
+    # takes the 96B rows when the index keeps both layouts (lf_step_auto)
     lf = R.lf_step_auto(dx, prefer_fb96=True)
     # ftab-restart REPLAY state: instead of re-gathering a [B, k] query window
-    # every step (10x the loop's gather traffic — 5.4x slower end to end on
-    # v5e), a restart-hit lane consumes the kmer's k chars one LF step at a
+    # every step (10x the loop's gather traffic), a restart-hit lane
+    # consumes the kmer's k chars one LF step at a
     # time from the FULL range.  search_ftab's value is exactly find_range of
     # those chars, and its miss->full-range quirk (rowbowt.hpp:757) is an
     # empty range mid-replay -> hold FULL for the rest of the replay.  i

@@ -75,7 +75,7 @@ class RbtIndex:
     ftab: np.ndarray | None = None  # int[4^k, 2]: (start, end); start==-1 -> absent
     ftab_k: int = 0
 
-    # --- dense FM tables (TPU fast path; DESIGN.md) ---
+    # --- dense FM tables (device fast path; DESIGN.md) ---
     ma_start1: np.ndarray | None = None  # int[n+1]: #markers in rows [0, i) (dense probe)
     bwt4: np.ndarray | None = None  # uint32[nb*16]: 4-bit packed BWT, 128 syms/block
     occ_blk: np.ndarray | None = None  # int[A, nb]: count of c before each block

@@ -3,7 +3,7 @@
 The reference's rb_locs pipeline (src/rb_markers_tsa.cpp:76-88) locates a read
 at text position l, then asks a separate structure for the markers overlapping
 text span [l, l+readlen-1] (pfbwt-f's rle_window_arr, built by build_midx from
-a text marker-position file).  TPU-native replacement: sorted marker text
+a text marker-position file).  Device-friendly replacement: sorted marker text
 positions + packed values, queried with searchsorted — dense tables instead of
 run-length-encoded window lists.
 

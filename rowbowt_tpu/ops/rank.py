@@ -58,7 +58,8 @@ _DW = _DB // 8  # uint32 words per block
 
 def rank_dense(dx: DeviceIndex, i, c):
     """Dense-FM rank: one checkpoint gather + one contiguous 64B block load +
-    VPU popcount.  ~8x less random HBM traffic than the run-space rank."""
+    popcount.  ~8x less random device-memory traffic than the run-space
+    rank."""
     arr = dx.arrays
     csafe = jnp.maximum(c, 0)
     isafe = jnp.minimum(i, dx.n - 1)
@@ -112,7 +113,7 @@ def _fb_rank_from_rows(row, off, c):
 
 def rank_fblock(dx: DeviceIndex, i, c):
     """Fused-block rank: ONE row gather (96B, checkpoint + packed symbols in
-    the same HBM transaction) + VPU SWAR popcount.  i in [0, n]."""
+    the same memory transaction) + SWAR popcount.  i in [0, n]."""
     arr = dx.arrays
     isafe = jnp.minimum(i, dx.n - 1)
     blk = (isafe >> 7).astype(jnp.int32)
@@ -128,11 +129,10 @@ def rank_fblock(dx: DeviceIndex, i, c):
 def rank_fblock64(dx: DeviceIndex, i, c):
     """64-symbol/64B-row fused-block rank — the default device layout.
 
-    Same contract as rank_fblock, half the bytes per row gather: HBM row
-    gathers pay per-transaction, so the smaller row is faster end to end at
-    every measured scale (1.51x at n=8M, 1.33x at n=160M) even though the
-    table is LARGER (1.0 vs 0.75 B/symbol) — tools/fblock_probe.py part3 +
-    the round-3 hardware A/B, DESIGN.md."""
+    Same contract as rank_fblock, two thirds of the bytes per row gather
+    though the table is LARGER (1.0 vs 0.75 B/symbol).  Row gathers pay per
+    memory transaction, which is why the smaller row is the default; its
+    margin on the GPU is not measured yet (tools/fblock_probe.py part3)."""
     arr = dx.arrays
     isafe = jnp.minimum(i, dx.n - 1)
     blk = (isafe >> 6).astype(jnp.int32)
@@ -191,8 +191,8 @@ def rank_fblock2(dx: DeviceIndex, i, c, key: str = "fb2", shift: int = 7):
 
 def _fb2_key(dx: DeviceIndex):
     """(key, shift) of the resident two-level layout: 64-symbol/64B rows when
-    repacked, 256-symbol/160B rows (the giant-config shape: 0.63 B/symbol so
-    a 10^10-symbol table fits HBM), else the 128-symbol/96B build rows."""
+    repacked, 256-symbol/160B rows (the giant-config shape: 0.63 B/symbol for
+    a 10^10-symbol table), else the 128-symbol/96B build rows."""
     if "fb2_64" in dx.arrays:
         return "fb2_64", 6
     if "fb2_256" in dx.arrays:
@@ -270,20 +270,17 @@ def lf_step_dense(dx: DeviceIndex, lo, hi, c):
 
 
 def lf_step_auto(dx: DeviceIndex, prefer_fb96: bool = False):
-    """The fastest LF step the index's tables support (one if-chain for all
-    engines).  fblock first: on TPU v5e hardware 2 row gathers + SWAR beat
-    occ1's 2 elem gathers 2.7x at n=8M (930k vs 347k reads/s, B=131k —
-    tools/fblock_probe.py) because the row table is 37x smaller; at chr scale
-    occ1 cannot exist at all.  fblock64 (64B rows) is the default DeviceIndex
-    load layout: row gathers pay per-transaction, so the smaller row wins at
-    every measured scale for the pure LF loops (1.51x at n=8M, 1.33x at
-    n=160M on v5e).
+    """The LF step for the index's resident tables (one if-chain for all
+    engines), in this order: fblock rows (2 row gathers + SWAR; the row
+    table is 37x smaller than occ1, which cannot exist at chr scale), the
+    two-level fb2 rows, occ1, the bwt4/occ_blk split, run space.  fblock64
+    (64B rows) is the default DeviceIndex load layout.
 
     prefer_fb96=True picks the 96B rows when BOTH layouts are resident (small
-    indexes keep both, engine/device.py): the greedy-seeding loop — LF
-    interleaved with marker probes and slot records — measured 152k reads/s
-    on 96B rows vs 113k on 64B at n=8M while the same loop prefers 64B 1.14x
-    at n=160M (hardware A/B, DESIGN.md "per-engine row layout")."""
+    indexes keep both, engine/device.py) — for the greedy-seeding loop, whose
+    LF steps interleave with marker probes and slot records.  This order and
+    the thresholds behind it were chosen on other hardware; re-tuning them on
+    the GPU is open (tools/fblock_probe.py measures the candidates)."""
     if prefer_fb96 and "fblock" in dx.arrays:
         return lf_step_fblock
     if "fblock64" in dx.arrays:

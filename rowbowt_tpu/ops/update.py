@@ -1,10 +1,10 @@
 """Slot updates without scatter ops.
 
-TPU lowers `arr.at[rows, slot].set(val)` to a real scatter, which serializes
-per element.  Every in-loop record in the engines writes one dynamic SLOT per
-lane into a small fixed width (W window records, S seed slots), so a one-hot
-select over the width is pure VPU work — O(B*W) elementwise vs a serialized
-scatter — and fuses into the surrounding loop body.
+Every in-loop record in the engines writes one dynamic SLOT per lane into a
+small fixed width (W window records, S seed slots).  A one-hot select over
+the width is O(B*W) elementwise work that fuses into the surrounding loop
+body, where `arr.at[rows, slot].set(val)` would be a scatter.  Whether the
+scatter is slower on the GPU is not measured yet.
 """
 
 from __future__ import annotations

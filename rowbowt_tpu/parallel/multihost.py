@@ -1,17 +1,17 @@
-"""Multi-host orchestration: N processes × M local chips, one global mesh.
+"""Multi-host orchestration: N processes × M local cards, one global mesh.
 
-The reference is single-node (SURVEY.md §2.3); this is the TPU-native scaling
-story for configs "1 chip / 1 host / N hosts" (BASELINE.md):
+The reference is single-node (SURVEY.md §2.3); this is the scaling story for
+configs "1 card / 1 host / N hosts" (BASELINE.md):
 
   host i                    host j
   ┌───────────────┐        ┌───────────────┐
-  │ FASTQ shard i │  DCN   │ FASTQ shard j │   each host streams its own read
+  │ FASTQ shard i │network │ FASTQ shard j │   each host streams its own read
   │ native reader ├───────►│ native reader │   shard (no cross-host data path
-  │ local chips   │  ICI   │ local chips   │   for inputs)
+  │ local cards   │ NVLink │ local cards   │   for inputs)
   └──────┬────────┘        └──────┬────────┘
          └──────── global mesh ───┘            index replicated or R-sharded
                                                ('idx' axis inside each host
-                                               slice so collectives ride ICI)
+                                               so collectives stay on NVLink)
 
 Usage (same script on every host):
 
@@ -50,8 +50,8 @@ def init(coordinator: str | None = None, num_processes: int = 1,
 
 def global_mesh(n_idx: int = 1, devices=None):
     """(dp, idx) mesh over ALL processes' devices.  Device order groups each
-    host's chips contiguously, so an 'idx' axis of size <= chips-per-host keeps
-    index-shard collectives on ICI."""
+    host's cards contiguously, so an 'idx' axis of size <= cards-per-host
+    keeps index-shard collectives inside one host."""
     from rowbowt_tpu.parallel.mesh import make_mesh
 
     import jax

@@ -1,17 +1,17 @@
 """Sharded-index query engines: run tables partitioned along R over the
-'idx' mesh axis — for panel indexes whose tables exceed one chip's HBM
+'idx' mesh axis — for panel indexes whose tables exceed one card's memory
 (SURVEY.md §2.3: 1000G-scale sharding; the genuinely distributed kernels).
 
 Layout: shard s owns a contiguous slice of runs and therefore the contiguous
 BWT position interval [bounds[s], bounds[s+1]).  A rank(i, c) query runs the
 same local searchsorted on every shard; only the owner's contribution survives
-the psum over 'idx'.  One LF step = 2 ranks = 2 psums riding ICI.  The toehold
+the psum over 'idx'.  One LF step = 2 ranks = 2 psums over the interconnect.  The toehold
 tables (samples_last, ltk) shard the same way; the phi predecessor array
 (pred_pos, sorted text positions) shards contiguously in VALUE order, so a
 global predecessor rank is the psum of local counts.
 
 Queries stay sharded over 'dp' (replicated over 'idx'), so total collective
-volume per step is O(batch/dp) ints — tiny next to the HBM gathers.
+volume per step is O(batch/dp) ints — tiny next to the table gathers.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ Layout (DESIGN.md "sharding"):
   F     [A+1] replicated; k0 scalar replicated.
 
 Every rank/gather is: all shards compute a local candidate, the owner's
-survives one psum over 'idx' (O(batch/dp) ints riding ICI per step — see
+survives one psum over 'idx' (O(batch/dp) ints per step over NVLink — see
 DESIGN.md for the cost model).  Queries shard over 'dp' exactly like the
 replicated path.
 

@@ -44,6 +44,9 @@ def main(argv=None):
     from rowbowt_tpu.parallel import multihost as mh
 
     mh.init(args.coordinator, args.num_processes, args.process_id)
+    from rowbowt_tpu import runtime
+
+    runtime.init()  # after distributed init, which must precede the backend
 
     import numpy as np
 
@@ -90,32 +93,12 @@ def main(argv=None):
     out = sys.stdout
 
     if args.greedy:
-        # complement table over index codes for the revcomp lanes
-        tab = idx.alpha.encode_table()
-        comp = np.full(16, -1, dtype=np.int64)
-        for x, y in zip(b"ACGT", b"TGCA"):
-            cx, cy = int(tab[x]), int(tab[y])
-            if cx >= 0 and cy >= 0:
-                comp[cx] = cy
+        comp = complement_codes(idx.alpha)
 
     for names, qc, lens in iter_query_batches(idx, args.fastq, args.batch_size):
         B = len(names)
         if args.greedy:
-            # fwd+rc interleaved lanes (rb_markers.cpp:396-400); reads are
-            # right-aligned so the reversed read stays right-aligned for
-            # full-width lanes and re-right-aligns otherwise
-            L = qc.shape[1]
-            fwd = qc.astype(np.int64)
-            rc = np.full_like(fwd, -1)
-            for b in range(B):
-                m = int(lens[b])
-                r = fwd[b, L - m:]
-                rc[b, L - m:] = comp[np.maximum(r[::-1], 0)]
-                rc[b, L - m:][r[::-1] < 0] = -1
-            inter = np.empty((2 * B, L), dtype=np.int32)
-            inter[0::2] = fwd
-            inter[1::2] = rc
-            ilens = np.repeat(lens, 2)
+            inter, ilens = revcomp_lanes(qc, lens, comp, B)
             pad = (-(2 * B)) % n_dp
             if pad:
                 inter = np.concatenate(
@@ -130,17 +113,8 @@ def main(argv=None):
             ns_h = mh.my_rows(ns, inter.shape[0])
             mv_h = mh.my_rows(mvals, inter.shape[0])
             mc_h = mh.my_rows(mcnt, inter.shape[0])
-            for b, name in enumerate(names):
-                for strand, lane in (("+", 2 * b), ("-", 2 * b + 1)):
-                    got = []
-                    for s_ in range(mv_h.shape[1]):
-                        k = min(int(mc_h[lane, s_]), mv_h.shape[2])
-                        got += [int(v) for v in mv_h[lane, s_, :k] if v >= 0]
-                    parts = [f"{name} {strand} seeds={int(ns_h[lane])}"
-                             " markers: "] + [
-                        f"{int(marker_pos(np.int64(v)))}/"
-                        f"{int(marker_allele(np.int64(v)))} " for v in got]
-                    out.write("".join(parts) + "\n")
+            for line in greedy_lines(names, mv_h, mc_h, ns_h):
+                out.write(line + "\n")
             continue
         pad = (-B) % n_dp
         if pad:
@@ -172,6 +146,60 @@ def main(argv=None):
                     f"{int(marker_allele(np.int64(v)))} " for v in got]
                 out.write("".join(parts) + "\n")
     return 0
+
+
+def complement_codes(alpha):
+    """int64[16]: index code -> code of its complement base (-1 if none)."""
+    import numpy as np
+
+    tab = alpha.encode_table()
+    comp = np.full(16, -1, dtype=np.int64)
+    for x, y in zip(b"ACGT", b"TGCA"):
+        cx, cy = int(tab[x]), int(tab[y])
+        if cx >= 0 and cy >= 0:
+            comp[cx] = cy
+    return comp
+
+
+def revcomp_lanes(qc, lens, comp, n_reads):
+    """fwd+rc interleaved lanes (rb_markers.cpp:396-400) of the first
+    n_reads rows: ([2 * n_reads, L] int32, [2 * n_reads] lengths).  Reads are
+    right-aligned, so each reversed read is re-right-aligned."""
+    import numpy as np
+
+    L = qc.shape[1]
+    fwd = np.asarray(qc)[:n_reads].astype(np.int64)
+    rc = np.full_like(fwd, -1)
+    for b in range(n_reads):
+        m = int(lens[b])
+        r = fwd[b, L - m:]
+        rc[b, L - m:] = comp[np.maximum(r[::-1], 0)]
+        rc[b, L - m:][r[::-1] < 0] = -1
+    inter = np.empty((2 * n_reads, L), dtype=np.int32)
+    inter[0::2] = fwd
+    inter[1::2] = rc
+    return inter, np.repeat(np.asarray(lens)[:n_reads], 2)
+
+
+def greedy_lines(names, mvals, mcnt, nseeds):
+    """One output line per (read, strand) from host copies of the greedy
+    engine's per-lane results (lanes interleaved fwd, rc)."""
+    import numpy as np
+
+    from rowbowt_tpu.index import marker_allele, marker_pos
+
+    lines = []
+    for b, name in enumerate(names):
+        for strand, lane in (("+", 2 * b), ("-", 2 * b + 1)):
+            got = []
+            for s_ in range(mvals.shape[1]):
+                k = min(int(mcnt[lane, s_]), mvals.shape[2])
+                got += [int(v) for v in mvals[lane, s_, :k] if v >= 0]
+            lines.append("".join(
+                [f"{name} {strand} seeds={int(nseeds[lane])} markers: "]
+                + [f"{int(marker_pos(np.int64(v)))}/"
+                   f"{int(marker_allele(np.int64(v)))} " for v in got]))
+    return lines
 
 
 if __name__ == "__main__":

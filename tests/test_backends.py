@@ -158,40 +158,6 @@ def test_backend_agreement(text, reads, dense):
             assert list(locs[b, : cnt[b]]) == naive.locate_range(idx, *wrn, wk, 8)
 
 
-def test_pallas_lf_interpret_parity(text, reads):
-    """The Pallas fused-LF kernel (interpret mode) == find_ranges.
-
-    Compiled mode is a documented negative result: Mosaic has no vectorized
-    table-row gather (see ops/pallas_lf.py docstring + DESIGN.md); interpret
-    parity pins the kernel's math so the record stays executable.
-    """
-    import functools
-
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-
-    from rowbowt_tpu.engine.batch import encode_batch
-    from rowbowt_tpu.ops import pallas_lf
-
-    idx = build_index(text)
-    dx = DeviceIndex.from_index(idx, fb64=False)  # the pallas kernel reads the 96B rows
-    qc, lens = encode_batch(idx, reads)
-    pad = (-len(reads)) % 8
-    qc = np.concatenate([qc, np.full((pad, qc.shape[1]), -1, qc.dtype)])
-    lens = np.concatenate([lens, np.zeros(pad, lens.dtype)])
-    lo0, hi0 = find_ranges(dx, jnp.asarray(qc), jnp.asarray(lens), use_ftab=False)
-
-    orig = pl.pallas_call
-    pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        lo1, hi1 = pallas_lf.find_ranges_pallas(
-            dx, jnp.asarray(qc), jnp.asarray(lens), tile=8)
-    finally:
-        pl.pallas_call = orig
-    np.testing.assert_array_equal(np.asarray(lo0), np.asarray(lo1))
-    np.testing.assert_array_equal(np.asarray(hi0), np.asarray(hi1))
-
-
 def test_cpu_fb2_engines_match_naive():
     """The single-thread CPU locate/markers/greedy engines (bench baselines,
     native/cpu_engine.cpp) == the naive reference spec, read by read."""

@@ -46,12 +46,13 @@ def test_read_seqs_mixed(mixed_file):
     assert recs[2][2] == b"IIIIIIII"
 
 
-@pytest.mark.skipif(not NativeBatchReader.available(), reason="no native lib")
 @pytest.mark.parametrize("with_rc,norm", [(False, False), (True, True)])
-def test_native_reader_matches_python(tmp_path, tiny_index, with_rc, norm):
+def test_native_reader_matches_python(tmp_path, seeded_index, with_rc, norm):
+    if not NativeBatchReader.available():
+        pytest.skip("no native lib")
     p = tmp_path / "reads.fq.gz"
     p.write_bytes(gzip.compress(FASTQ))
-    idx = tiny_index
+    idx = seeded_index
     batches = list(NativeBatchReader(str(p), idx.alpha.encode_table(),
                                      batch_size=4, with_rc=with_rc,
                                      normalize=norm))
@@ -73,8 +74,9 @@ def test_native_reader_matches_python(tmp_path, tiny_index, with_rc, norm):
     assert (lens[nl:] == 0).all()
 
 
-@pytest.mark.skipif(not NativeBatchReader.available(), reason="no native lib")
-def test_native_reader_multi_batch(tmp_path, tiny_index):
+def test_native_reader_multi_batch(tmp_path, seeded_index):
+    if not NativeBatchReader.available():
+        pytest.skip("no native lib")
     recs = b"".join(
         f"@r{i}\nACGTACGTAC\n+\nIIIIIIIIII\n".encode() for i in range(10)
     )
@@ -82,7 +84,7 @@ def test_native_reader_multi_batch(tmp_path, tiny_index):
     p.write_bytes(recs)
     out = []
     for names, qc, lens in NativeBatchReader(str(p),
-                                             tiny_index.alpha.encode_table(),
+                                             seeded_index.alpha.encode_table(),
                                              batch_size=4):
         out.extend(names)
         assert qc.shape[0] == 4

@@ -2,7 +2,7 @@
 each process streams its own FASTQ shard over a (dp x idx) mesh spanning both
 processes' CPU devices (Gloo collectives), index position-sharded; host 0
 emits ordered results.  This exercises make_array_from_process_local_data and
-process_allgather across an actual process boundary — the DCN path the
+process_allgather across an actual process boundary — the cross-host path the
 single-process tests degenerate away."""
 
 import os

@@ -11,11 +11,14 @@ import pytest
 
 from rowbowt_tpu.alphabet import SEP_BYTE, TERM_BYTE, Alphabet
 from rowbowt_tpu.bigindex import BigIndex
-from rowbowt_tpu.construct.sa import _load_native, suffix_array
+from rowbowt_tpu.construct.sa import suffix_array
 
-pytestmark = pytest.mark.skipif(
-    _load_native() is None or not hasattr(_load_native(), "rbt_pfp_new"),
-    reason="native pfp library not built")
+
+
+@pytest.fixture(autouse=True)
+def _needs_native_pfp(native_lib):
+    if native_lib is None or not hasattr(native_lib, "rbt_pfp_new"):
+        pytest.skip("native pfp library not built")
 
 
 def _panel(rng, ref_len=400, n_haps=3, n_vars=12, w=4):

@@ -1,11 +1,9 @@
-"""Chip probe (VERDICT r4 #7): close the last 11% on big count.
+"""GPU probe: big count throughput against the batch interleave shape.
 
-The chr count loop sits at 100% of its measured dependent-gather speed of
-light; big sits at 89% (186.5k vs 210k, tools/big_probe.py).  One structural
-difference: the big bench scans nb=2 batches of 65k lanes while chr runs
-nb=4 — the interleaved independent chains are what hide gather latency
-(DESIGN.md).  Measure count throughput at 2x65k (current), 4x65k
-(reads duplicated), and 8x32k on the real chip.
+tools/big_probe.py measures the dependent-gather speed of light on the big
+table; the interleaved independent per-batch chains are what hide gather
+latency (DESIGN.md).  Measure count throughput at 2x65k, 4x65k (reads
+duplicated), and 8x32k on the GPU.
 
     python tools/big_scan_probe.py
 """
@@ -22,9 +20,9 @@ sys.path.insert(0, REPO)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(REPO, ".cache", "jaxcache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from rowbowt_tpu import runtime  # noqa: E402
+
+runtime.init(allow_explicit_cpu=False)
 
 from rowbowt_tpu.bigindex import BigIndex  # noqa: E402
 from rowbowt_tpu.engine.count import find_ranges  # noqa: E402
@@ -50,11 +48,11 @@ def main():
             _, (lo, hi) = jax.lax.scan(step, None, (qc3, len2 + salt - salt))
             return jnp.sum(lo) + jnp.sum(hi)
 
-        _ = int(count_all(dx, qc3, len2, 0))
+        jax.block_until_ready(count_all(dx, qc3, len2, 0))
         best = float("inf")
         for s in range(3):
             t0 = time.perf_counter()
-            _ = int(count_all(dx, qc3, len2, s + 1))
+            jax.block_until_ready(count_all(dx, qc3, len2, s + 1))
             best = min(best, time.perf_counter() - t0)
         n_lanes = qc3.shape[0] * qc3.shape[1]
         print(f"{tag}: {n_lanes / best:,.0f} lanes/s "
@@ -77,7 +75,7 @@ def main():
 
 def phi_probe():
     """Raw phi-hop rate on the big artifact: bitmap-rank rows vs the bucketed
-    breakpoint search (the VERDICT r4 #3 lever), outside the ragged walk's
+    breakpoint search, outside the ragged walk's
     per-bucket dispatch overhead."""
     import time
 
@@ -99,11 +97,11 @@ def phi_probe():
             locs, cnt = locate(dx, lo, hi, k + salt - salt, max_hits=mh)
             return jnp.sum(locs) + jnp.sum(cnt)
 
-        _ = int(walk(dx, lo, hi, k, 0))
+        jax.block_until_ready(walk(dx, lo, hi, k, 0))
         best = float("inf")
         for s in range(3):
             t0 = time.perf_counter()
-            _ = int(walk(dx, lo, hi, k, s + 1))
+            jax.block_until_ready(walk(dx, lo, hi, k, s + 1))
             best = min(best, time.perf_counter() - t0)
         hops = B * mh
         print(f"phi walk max_hits={mh}: {hops/best/1e6:,.2f} M hops/s "
@@ -172,11 +170,11 @@ def concat_probe():
                 _, s = jax.lax.scan(outer, None, qc3)
                 return jnp.sum(s)
 
-            _ = int(count_all(dx, qq, 0))
+            jax.block_until_ready(count_all(dx, qq, 0))
             best = float("inf")
             for s in range(3):
                 t0 = time.perf_counter()
-                _ = int(count_all(dx, qq, s + 1))
+                jax.block_until_ready(count_all(dx, qq, s + 1))
                 best = min(best, time.perf_counter() - t0)
             print(f"{tag} {nb}x{b}: {need/best:,.0f} lanes/s", file=sys.stderr)
 

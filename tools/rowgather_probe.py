@@ -1,4 +1,4 @@
-"""Probe: element gather vs row gather cost for dependent chains on TPU."""
+"""Probe: element gather vs row gather cost for dependent chains."""
 import os, sys, time
 import numpy as np
 
@@ -7,8 +7,9 @@ sys.path.insert(0, REPO)
 
 import jax
 import jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".cache", "jaxcache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from rowbowt_tpu import runtime  # noqa: E402
+
+runtime.init(allow_explicit_cpu=False)
 
 N = 8_000_000
 B = 32768

@@ -1,7 +1,7 @@
-"""Virtual-mesh sharding scaling curve (VERDICT r2 item 8): the SAME index
+"""Virtual-mesh sharding scaling curve: the SAME index
 run at n_idx = 1/2/4/8 on the 8-device CPU mesh, wall-clock per LF step.
 
-This cannot measure ICI (no multi-chip hardware here); it bounds the
+This cannot measure NVLink (virtual CPU devices only); it bounds the
 COLLECTIVE/BOXING machinery cost trend: how much the shard_map psum-per-rank
 program slows down as the index axis widens while total devices stay fixed.
 Run: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \

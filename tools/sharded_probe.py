@@ -11,8 +11,9 @@ CACHE = os.path.join(REPO, ".cache", "bench_idx")
 
 import jax
 import jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".cache", "jaxcache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from rowbowt_tpu import runtime  # noqa: E402
+
+runtime.init(allow_explicit_cpu=False)
 
 from rowbowt_tpu.index import RbtIndex
 from rowbowt_tpu.engine.device import DeviceIndex
@@ -22,17 +23,12 @@ from rowbowt_tpu.parallel.sharded_dense import (
     ShardedDenseIndex, find_ranges_sharded_dense)
 
 
-def _sync(out):
-    leaf = jax.tree_util.tree_leaves(out)[0]
-    return np.asarray(leaf).ravel()[0]
-
-
 def timeit(fn, *a, reps=3):
-    _sync(fn(*a))
+    jax.block_until_ready(fn(*a))
     best = float("inf")
     for _ in range(reps):
         t0 = time.perf_counter()
-        _sync(fn(*a))
+        jax.block_until_ready(fn(*a))
         best = min(best, time.perf_counter() - t0)
     return best
 

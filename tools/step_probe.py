@@ -8,8 +8,9 @@ CACHE = os.path.join(REPO, ".cache", "bench_idx")
 
 import jax
 import jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".cache", "jaxcache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from rowbowt_tpu import runtime  # noqa: E402
+
+runtime.init(allow_explicit_cpu=False)
 
 from rowbowt_tpu.index import RbtIndex
 from rowbowt_tpu.engine.device import DeviceIndex
