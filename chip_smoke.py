@@ -17,10 +17,11 @@ samples, 60,000 SNVs: n ~ 180 M):
               toehold ranges, locate and greedy seeding == the dense index;
   7. profile  rbt_markers --profile on a slice; a trace file must appear.
 
-Four cards (--four-gpus): scripts/sharded_stream.py --greedy with the index
-position-sharded over 4 cards (--n-idx 4, psum per rank) and replicated over a
-4-way data-parallel mesh (--n-idx 1), each compared line for line with the
-single-card greedy engine on the same reads.
+Four cards (--four-gpus), on the same panel and reads:
+scripts/sharded_stream.py --greedy with the index position-sharded over 4
+cards (--n-idx 4, psum per rank) and replicated over a 4-way data-parallel
+mesh (--n-idx 1), each compared line for line with the single-card greedy
+engine on the same reads.
 
 Every phase runs through the entry points a user calls, on the card, compiled
 by XLA; the CLIs run in this process (one JAX process per card).  Informational
@@ -51,7 +52,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WSIZE = 10
 SAMPLES = 4            # diploid samples of the panel (8 haplotypes)
 SITES_PER_KBP = 3      # SNV density: 60,000 sites on 20 Mbp
+REF_LEN = 20_000_000   # reference bp: n ~ 180 M over 9 documents
+N_READS = 65_536
 READ_LEN = 100
+PARITY_READS = 1024    # seeded sample checked against engine/naive.py
+PROFILE_READS = 2048   # slice traced by rbt_markers --profile
 MAX_RANGE = 1000       # rbt_markers -r default
 MAX_SEEDS = 8          # rbt_markers --max-seeds default
 MAX_MARKERS = 32       # rbt_markers --max-markers default
@@ -176,32 +181,35 @@ def expected_align(idx, seq: bytes) -> AlignRecord:
 def expected_markers(idx, name: str, seq: bytes, wsize=WSIZE,
                      max_range=MAX_RANGE, max_seeds=MAX_SEEDS,
                      max_k=MAX_MARKERS) -> list[str]:
-    """rbt_markers' seed lines for one read from naive greedy seeding, cut to
-    the CLI's --max-seeds / --max-markers exactly as the engine cuts them."""
+    """rbt_markers' seed lines for one read: naive greedy seeding on both
+    strands, then rb_markers' out_fn (rb_markers.cpp:365-382) written out
+    here.  The CLI keeps the first --max-seeds seeds of a strand and the first
+    --max-markers markers of a seed; out_fn drops a seed with an empty range,
+    counts a '-' seed's start from the read's end, and sorts and dedups its
+    markers.  Sizes wrap mod 2^64 like the reference's size_t."""
     from rowbowt_tpu.alphabet import normalize_read, revcomp
     from rowbowt_tpu.engine import naive
-    from rowbowt_tpu.engine.filters import assemble_seeds
+    from rowbowt_tpu.index import marker_allele, marker_pos, marker_seq
 
     s = normalize_read(seq)
     lines = []
     for strand, q in (("+", s), ("-", revcomp(s))):
-        codes = idx.alpha.encode(q).astype(np.int64)
         seeds = []
         naive.get_markers_greedy_seeding(
-            idx, codes, wsize, max_range,
-            lambda rn, qr, mk: seeds.append((rn, qr, [int(x) for x in mk])),
+            idx, idx.alpha.encode(q).astype(np.int64), wsize, max_range,
+            lambda rn, qr, mk: seeds.append((rn, qr, list(mk))),
             use_ftab=False)
-        kept = seeds[:max_seeds]
-        col = lambda part, i: np.array(  # noqa: E731  (python ints: u64 wrap)
-            [x[part][i] for x in kept], dtype=object)
-        lo, hi, qs, qe = col(0, 0), col(0, 1), col(1, 0), col(1, 1)
-        mv = np.full((len(kept), max_k), -1, dtype=np.int64)
-        for j, (_, _, mk) in enumerate(kept):
-            mv[j, :min(len(mk), max_k)] = mk[:max_k]
-        mc = np.array([len(mk) for _, _, mk in kept], dtype=np.int64)
-        for ms in assemble_seeds(name, strand, len(s), lo, hi, qs, qe, mv, mc,
-                                 len(seeds), max_k=max_k):
-            lines.append(ms.print_buf())
+        for (lo, hi), (qs, qe), mk in seeds[:max_seeds]:
+            lo, hi, qs, qe = int(lo), int(hi), int(qs), int(qe)
+            if hi < lo:
+                continue
+            start = len(s) - qs - 1 if strand == "-" else qs
+            fields = [name, str((hi - lo + 1) % (1 << 64)), strand, str(start),
+                      str((qe - qs + 1) % (1 << 64))]
+            mk = sorted({int(m) for m in mk[:max_k]})
+            fields += [f"{marker_seq(m)}/{marker_pos(m)}/{marker_allele(m)}"
+                       for m in mk] or ["."]
+            lines.append(" ".join(fields))
     return lines
 
 
@@ -326,13 +334,13 @@ def timed(fn, *a):
 
 # ---------------------------------------------------------------- runs
 
-def write_inputs(args, work: str):
+def write_inputs(work: str, seed: int, ref_len: int, n_reads: int):
     from rowbowt_tpu.construct import synth
 
-    return synth.write_panel(os.path.join(work, "in"), seed=args.seed,
-                             ref_len=args.ref_len, n_samples=SAMPLES,
-                             n_sites=args.ref_len * SITES_PER_KBP // 1000,
-                             n_reads=args.reads, read_len=READ_LEN)
+    return synth.write_panel(os.path.join(work, "in"), seed=seed,
+                             ref_len=ref_len, n_samples=SAMPLES,
+                             n_sites=ref_len * SITES_PER_KBP // 1000,
+                             n_reads=n_reads, read_len=READ_LEN)
 
 
 def device_report() -> dict:
@@ -350,7 +358,8 @@ def peak_bytes() -> list[int]:
             for d in jax.local_devices()]
 
 
-def run_single(args, work: str) -> None:
+def run_single(work: str, seed: int, *, ref_len=REF_LEN, n_reads=N_READS,
+               parity_reads=PARITY_READS, profile_reads=PROFILE_READS) -> None:
     import jax
 
     from rowbowt_tpu.cli import rbt_align, rbt_build, rbt_markers
@@ -366,7 +375,7 @@ def run_single(args, work: str) -> None:
     with phase("native", t):
         build_native()
     with phase("inputs", t):
-        p = write_inputs(args, work)
+        p = write_inputs(work, seed, ref_len, n_reads)
         log(f"  ref {p.ref_len:,} bp, {p.n_samples} samples "
             f"({2 * p.n_samples} haplotypes), {p.n_sites:,} SNVs, "
             f"{p.n_reads:,} reads of {READ_LEN} bp")
@@ -393,10 +402,9 @@ def run_single(args, work: str) -> None:
             f"load+compile, {p.n_reads / t_markers:,.0f} reads/s (info)")
     reads = [(nm, seq) for nm, seq, _ in read_seqs(p.fastq)]
     with phase("parity", t):
-        rng = np.random.default_rng(args.seed + 1)
-        pick = np.sort(rng.choice(len(reads), size=min(args.parity_reads,
-                                                       len(reads)),
-                                  replace=False))
+        rng = np.random.default_rng(seed + 1)
+        pick = np.sort(rng.choice(len(reads), replace=False,
+                                  size=min(parity_reads, len(reads))))
         res = check_parity(idx, [reads[i] for i in pick],
                            parse_align(align_txt), parse_markers(markers_txt))
         log("  naive parity: " + " ".join(f"{k}={v}" for k, v in res.items())
@@ -440,7 +448,7 @@ def run_single(args, work: str) -> None:
     with phase("profile", t):
         slice_fq = os.path.join(work, "slice.fq")
         synth.write_fastq(slice_fq, np.array(
-            [np.frombuffer(s, np.uint8) for _, s in reads[:args.profile_reads]]))
+            [np.frombuffer(s, np.uint8) for _, s in reads[:profile_reads]]))
         trace_dir = os.path.join(work, "trace")
         run_cli(rbt_markers.main, [idx_dir, slice_fq, "-w", str(WSIZE),
                                    "--profile", trace_dir])
@@ -471,7 +479,8 @@ def device_planes(path: str) -> str:
         return f"unreadable ({e})"
 
 
-def run_four(args, work: str) -> None:
+def run_four(work: str, seed: int, *, ref_len=REF_LEN,
+             n_reads=N_READS) -> None:
     import importlib.util
 
     import jax
@@ -493,7 +502,7 @@ def run_four(args, work: str) -> None:
     with phase("native", t):
         build_native()
     with phase("inputs", t):
-        p = write_inputs(args, work)
+        p = write_inputs(work, seed, ref_len, n_reads)
     idx_dir = os.path.join(work, "idx")
     with phase("build", t):
         run_cli(rbt_build.main, ["--fasta", p.fasta, "--vcf", p.vcf,
@@ -543,23 +552,11 @@ def parse_args(argv=None):
     ap.add_argument("--four-gpus", action="store_true",
                     help="run only the 4-card sharded/replicated path")
     ap.add_argument("--seed", type=int, default=21)
-    ap.add_argument("--ref-len", type=int, default=None,
-                    help="reference bp (default 20,000,000; 2,000,000 with "
-                         "--four-gpus)")
-    ap.add_argument("--reads", type=int, default=None,
-                    help="reads (default 65,536; 8,192 with --four-gpus)")
-    ap.add_argument("--parity-reads", type=int, default=1024)
-    ap.add_argument("--profile-reads", type=int, default=2048)
     ap.add_argument("--work", default=os.path.join(REPO, ".cache", "chip_smoke"),
                     help="scratch directory (removed at the end)")
     ap.add_argument("--keep", action="store_true",
                     help="keep the scratch directory")
-    args = ap.parse_args(argv)
-    if args.ref_len is None:
-        args.ref_len = 2_000_000 if args.four_gpus else 20_000_000
-    if args.reads is None:
-        args.reads = 8_192 if args.four_gpus else 65_536
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
@@ -577,7 +574,7 @@ def main(argv=None) -> int:
         log(f"  jax {dev}")
         shutil.rmtree(args.work, ignore_errors=True)
         os.makedirs(args.work)
-        (run_four if args.four_gpus else run_single)(args, args.work)
+        (run_four if args.four_gpus else run_single)(args.work, args.seed)
     except Exception as e:  # any failed phase: no ok line
         import traceback
 

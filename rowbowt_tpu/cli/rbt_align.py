@@ -103,9 +103,9 @@ def _query_loop(args, idx, dx, out):
             lo, hi = find_ranges(dx, qc, lens)
         # pad lanes (length 0, past the batch's reads) hold the full range:
         # empty them, or locate and markers would expand all n rows of each
-        lo_h, hi_h = np.array(lo), np.array(hi)
-        lo_h[len(names):], hi_h[len(names):] = 1, 0
-        lo, hi = jnp.asarray(lo_h), jnp.asarray(hi_h)
+        real = jnp.arange(lo.shape[0]) < len(names)
+        lo, hi = jnp.where(real, lo, 1), jnp.where(real, hi, 0)
+        lo_h, hi_h = np.asarray(lo), np.asarray(hi)
         if args.sam:
             # the reference locates the WHOLE range (max_hits = -1); the
             # bucketed ragged walk allocates O(total hits), so one huge-range
